@@ -1,6 +1,6 @@
 """Library quickstart: build a scene in code, simulate, inspect, plot.
 
-Run:  python examples/quickstart.py        (any backend JAX supports)
+Run:  python examples/quickstart.py        (any device JAX supports)
 
 Shows the object-level API (the same surface the CLI drives):
 Scenario -> Simulator -> tick()/run() -> list_pedestrians()/metrics,
@@ -41,10 +41,9 @@ def build_scenario() -> Scenario:
 
 def main() -> None:
     scenario = build_scenario()
-    # backend="grid" is the fast cell-resident path; "xla" runs anywhere
-    # (including non-default neighbor units); n_devices>1 / tile=(r, c)
-    # shard spatially over a device mesh.
-    sim = Simulator(SimulatorOptions(backend="xla", seed=42), scenario)
+    # SimulatorOptions mirrors the reference's flags; n_devices>1 shards
+    # the field spatially over a device mesh.
+    sim = Simulator(SimulatorOptions(seed=42), scenario)
 
     for step in range(200):
         rec = sim.tick()
@@ -56,11 +55,11 @@ def main() -> None:
     print(f"final: {len(pos)} agents; "
           f"x span [{pos[:, 0].min():.1f}, {pos[:, 0].max():.1f}] m")
 
-    # checkpoint round trip (restores across backends and device counts)
+    # checkpoint round trip (restores across device counts)
     from pedoni_tpu.checkpoint import restore, save
 
     save(sim, "/tmp/quickstart_ck.npz")
-    sim2 = Simulator(SimulatorOptions(backend="xla", seed=0), scenario)
+    sim2 = Simulator(SimulatorOptions(seed=0), scenario)
     restore(sim2, "/tmp/quickstart_ck.npz")
     assert sim2.pedestrian_count == sim.pedestrian_count
     print(f"checkpoint restored at step {sim2.step_count}")

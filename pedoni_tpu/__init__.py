@@ -1,10 +1,10 @@
-"""pedoni-tpu: a TPU-native crowd-simulation framework (JAX/XLA/Pallas).
+"""pedoni-tpu: a crowd-simulation framework in JAX for NVIDIA GPUs.
 
 A ground-up re-design of the capabilities of the Rust/OpenCL reference
 ``qt2/pedoni``: Helbing social-force pedestrian dynamics with fast-marching
 navigation fields, uniform-grid neighbor search, TOML scenarios, headless
-benchmarking with JSON step metrics, and multi-chip spatial sharding over a
-``jax.sharding.Mesh`` with ICI halo exchange.
+benchmarking with JSON step metrics, and multi-device spatial sharding over
+a ``jax.sharding.Mesh`` with a halo exchange between neighbor strips.
 """
 
 from .field import Field, FieldMaps

@@ -56,32 +56,13 @@ def load_state(path: str | Path) -> tuple[SimState, int]:
 
 def save(sim, path: str | Path) -> None:
     """Checkpoint a Simulator.  Always stored as flat agent arrays, so a
-    checkpoint written by any backend / device count restores on any
-    other (grid states are unbinned on save, re-binned on restore)."""
-    save_state(sim._to_flat_state(), path, step_count=sim.step_count)
+    checkpoint written at any device count restores on any other."""
+    save_state(sim.state, path, step_count=sim.step_count)
 
 
 def restore(sim, path: str | Path) -> None:
-    """Restore a Simulator in place.  The checkpoint capacity must not
-    exceed the simulator's configured capacity; smaller checkpoints are
-    padded with inactive slots."""
+    """Restore a Simulator in place.  A checkpoint larger than the
+    simulator's capacity rebuilds it at the checkpoint's capacity; smaller
+    checkpoints are padded with inactive slots."""
     state, step_count = load_state(path)
-    n = state.agents.pos.shape[0]
-    if n > sim.cfg.capacity:
-        sim._build(n)  # rebuild at the checkpoint's (larger) capacity —
-        #                capacity is only a static array length, any n works
-    cap = sim.cfg.capacity
-    if n < cap:
-        pad = cap - n
-        a = state.agents
-        state = state._replace(
-            agents=AgentState(
-                pos=jnp.concatenate([a.pos, jnp.zeros((pad, 2), jnp.float32)]),
-                vel=jnp.concatenate([a.vel, jnp.zeros((pad, 2), jnp.float32)]),
-                speed=jnp.concatenate([a.speed, jnp.ones((pad,), jnp.float32)]),
-                dest=jnp.concatenate([a.dest, jnp.zeros((pad,), jnp.int32)]),
-                active=jnp.concatenate([a.active, jnp.zeros((pad,), bool)]),
-            )
-        )
-    sim.state = sim._from_flat_state(state)
-    sim.step_count = step_count
+    sim.set_state(state, step_count)

@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Mirrors the reference CLI (pedoni/src/args.rs:12-44) flag for flag, plus
-TPU-era extras (seed, capacity, backend device).  Headless mode reproduces
+extras the reference lacks (seed, capacity, devices, checkpoints).  Headless mode reproduces
 pedoni/src/main.rs:106-136: run the simulation, log every 100 steps, and on
 SIGINT or --max-steps write the JSON diagnostic log to
 ``logs/<timestamp>_log.json``.
@@ -22,6 +22,7 @@ from pathlib import Path
 from .physics import Physics
 from .scenario import load_scenario
 from .sim import Simulator, SimulatorOptions
+from .utils.cache import enable_compile_cache
 
 log = logging.getLogger("pedoni_tpu")
 
@@ -30,23 +31,19 @@ DEFAULT_SCENARIO = Path(__file__).resolve().parents[1] / "scenarios" / "default.
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="pedoni-tpu", description="TPU-native social-force crowd simulator"
+        prog="pedoni-tpu", description="social-force crowd simulator on JAX"
     )
     p.add_argument("scenario", nargs="?", default=str(DEFAULT_SCENARIO),
                    help="path to scenario TOML (args.rs:14)")
     p.add_argument("-H", "--headless", action="store_true",
                    help="run headless (args.rs:17)")
     p.add_argument("-b", "--backend", default="auto",
-                   choices=["auto", "cpu", "tpu", "xla", "pallas", "grid"],
-                   help="compute backend / device (args.rs:20-21); grid = "
-                        "the cell-resident two-kernel fast path")
+                   choices=["auto", "cpu", "gpu"],
+                   help="compute device (args.rs:20-21); auto = JAX's "
+                        "default, gpu fails when no GPU is visible")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="shard the simulation over N devices (row strips, "
-                        "grid backend only; the scaling axis the reference "
-                        "lacks)")
-    p.add_argument("--tile", default=None, metavar="RxC",
-                   help="2D device tiling, e.g. 4x2 (rows x cols; must "
-                        "cover --devices); default = row strips")
+                   help="shard the simulation over N devices (strips along "
+                        "x; the scaling axis the reference lacks)")
     p.add_argument("-s", "--speed", type=float, default=100.0,
                    help="max playback speed multiple of real time (args.rs:23-24)")
     p.add_argument("--no-neighbor-grid", action="store_true",
@@ -57,17 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="field grid cell size in meters (args.rs:33-34)")
     p.add_argument("--neighbor-unit", type=float, default=1.4,
                    help="neighbor grid cell size in meters (args.rs:36-37)")
-    p.add_argument("--work-size", type=int, default=2048,
-                   help="agent slots per kernel dispatch block "
-                        "(args.rs:39-40 analog; sets the Pallas row_block "
-                        "= work-size/1024 cell rows, clamped to [1, 8])")
     p.add_argument("--max-steps", type=int, default=None,
                    help="stop after this many steps, headless only (args.rs:42-43)")
     p.add_argument("--seed", type=int, default=0, help="PRNG seed (new)")
     p.add_argument("--capacity", type=int, default=0,
                    help="agent capacity; 0 = auto (new)")
     p.add_argument("--table-capacity", type=int, default=16,
-                   help="max agents per neighbor cell (new)")
+                   help="initial agents per neighbor cell; grows before a "
+                        "cell fills (new)")
     p.add_argument("--log-dir", default="logs", help="diagnostic log directory")
     p.add_argument("--render", action="store_true",
                    help="live terminal rendering while running")
@@ -98,63 +92,39 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def select_device(backend: str) -> None:
+    """Pin JAX's default device to ``backend`` (cpu/gpu); ``auto`` keeps
+    JAX's own choice.  A platform JAX cannot see is an error, never a
+    silent fallback to another device."""
+    if backend == "auto":
+        return
+    import jax
+
+    try:
+        devices = jax.devices(backend)
+    except RuntimeError as e:
+        raise SystemExit(
+            f"-b {backend}: JAX sees no {backend} device ({e})") from e
+    # Process-wide default device via the config system — unlike a bare
+    # context-manager __enter__, this nests cleanly when a library
+    # consumer builds several simulators in one process.
+    jax.config.update("jax_default_device", devices[0])
+
+
 def make_simulator(args: argparse.Namespace):
+    select_device(args.backend)
     scenario = load_scenario(args.scenario)
-    neighbor_unit = args.neighbor_unit
-    if args.backend in ("pallas", "grid") and neighbor_unit == 1.4:
-        neighbor_unit = 1.5  # the fused kernel's stride-6 layout needs 1.5 m
-    model_backend = args.backend if args.backend in ("pallas", "grid") else "xla"
-    tile = None
-    n_devices = getattr(args, "devices", 1)
-    if getattr(args, "tile", None):
-        parts = args.tile.lower().split("x")
-        try:
-            r, c = (int(p) for p in parts)
-        except ValueError:  # wrong count or non-integer parts
-            r = c = 0
-        if r < 1 or c < 1:
-            raise SystemExit(
-                f"--tile must be RxC with positive integers, got {args.tile!r}")
-        tile = (r, c)
-        if n_devices == 1:
-            n_devices = r * c  # --tile 4x2 alone implies --devices 8
-        elif n_devices != r * c:
-            raise SystemExit(
-                f"--tile {r}x{c} does not cover --devices {n_devices}")
-    if n_devices > 1 and model_backend != "grid":
-        if args.backend != "auto":
-            # an explicitly requested non-grid backend cannot shard — the
-            # library treats this as an error (sim.py); don't mask it
-            raise SystemExit(
-                f"--devices {n_devices} requires the grid backend; "
-                f"drop '-b {args.backend}' or pass '-b grid'")
-        model_backend = "grid"  # auto: sharding runs on the grid backend
-        if neighbor_unit == 1.4:
-            neighbor_unit = 1.5
     options = SimulatorOptions(
-        backend=model_backend,
-        tile=tile,
-        neighbor_grid_unit=neighbor_unit,
+        neighbor_grid_unit=args.neighbor_unit,
         field_grid_unit=args.field_unit,
         use_neighbor_grid=not args.no_neighbor_grid,
         use_distance_map=not args.no_distance_map,
         table_capacity=args.table_capacity,
-        chunk_size=args.work_size,
         capacity=args.capacity,
         seed=args.seed,
         physics=Physics(),
-        n_devices=n_devices,
+        n_devices=args.devices,
     )
-
-    if args.backend in ("cpu", "tpu"):
-        import jax
-
-        devices = jax.devices(args.backend if args.backend != "tpu" else None)
-        # Process-wide default device via the config system — unlike a
-        # bare context-manager __enter__, this nests cleanly when a
-        # library consumer builds several simulators in one process.
-        jax.config.update("jax_default_device", devices[0])
-
     return Simulator(options, scenario), scenario
 
 
@@ -249,13 +219,11 @@ def _headless_loop(args, sim, diag, interrupted, renderer, keys,
             continue
         rec = sim.tick()
         if args.profile and sim.step_count % 100 == 1:
-            # Periodic timed fence: isolate device kernel time from the
-            # spawn/metric/host overhead (fills the diagnostic slot the
+            # Periodic timed fence: isolate device step time from the
+            # metric/host overhead (fills the diagnostic slot the
             # reference measured and discarded, sfm_gpu.rs:229-236).
             rec.time_calc_state_kernel = sim.measure_kernel_time()
-            t_spawn = sim.measure_spawn_time()
-            if t_spawn is not None:
-                rec.time_spawn = t_spawn
+            rec.time_spawn = sim.measure_spawn_time()
         diag.push(rec)
         if viewer is not None:
             viewer.set_step(sim.step_count)
@@ -291,6 +259,7 @@ def _headless_loop(args, sim, diag, interrupted, renderer, keys,
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s",

@@ -13,12 +13,13 @@ analysis tooling carries over:
       }
     }
 
-Our fused device step has no separate spawn phase, so ``time_spawn``
-records 0.0 on ordinary steps and the whole step time goes to
-``time_calc_state``; under ``--profile`` both the spawn slot and the
-kernel-time slot are populated every 100 steps from isolated timed fences
-(Simulator.measure_spawn_time / measure_kernel_time — the reference
-measured kernel time and threw it away, sfm_gpu.rs:229-236).
+Our device step has no separate spawn phase, so ``time_spawn`` records
+0.0 on ordinary steps and the whole step time goes to ``time_calc_state``;
+under ``--profile`` both the spawn slot and the kernel-time slot are
+populated every 100 steps from isolated timed fences that end in
+``block_until_ready`` (Simulator.measure_spawn_time / measure_kernel_time —
+the reference measured kernel time and threw it away,
+sfm_gpu.rs:229-236).
 """
 
 from __future__ import annotations

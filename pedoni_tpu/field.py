@@ -18,8 +18,8 @@ pure-NumPy/Python fallback.  It runs once per scenario; the resulting maps are
 shipped to device HBM a single time, like the reference GPU backend's one-time
 image upload (sfm_gpu.rs:53-79).
 
-TPU-native twist — precomputed gradient maps
---------------------------------------------
+Precomputed gradient maps
+-------------------------
 The reference samples an 8-tap Sobel of each map at every agent every step
 (util.rs:61-75: 8 bilinear reads = 32 grid taps, per map).  Bilinear
 interpolation is *linear in the grid values* and the Sobel taps sit at integer

@@ -64,8 +64,8 @@ class PedestrianModel(abc.ABC):
 class SocialForceModel(PedestrianModel):
     """Object-style wrapper over the functional device step.
 
-    Note: the functional step fuses spawning into the device pipeline (the
-    idiomatic TPU design); this wrapper exists for drop-in familiarity and
+    Note: the functional step fuses spawning into the device pipeline (one
+    jitted function per step); this wrapper exists for drop-in familiarity and
     host-driven spawning.  ``update_states`` runs the fused step with
     periodic spawning disabled (externally injected agents only), matching
     the reference's split of spawn_pedestrians / update_states.

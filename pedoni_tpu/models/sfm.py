@@ -1,6 +1,6 @@
 """The social-force model as a single jitted device step.
 
-This is the TPU-native re-design of the reference's per-tick pipeline
+This is the device-resident re-design of the reference's per-tick pipeline
 (lib.rs:64-100 + sfm.rs): where the reference mutates growable host vectors,
 we keep fixed-capacity SoA arrays resident on device and express
 spawn/despawn as mask flips plus a per-step cell sort (the reference already
@@ -20,8 +20,7 @@ Step phases (one ``jit``-compiled function, no host round-trips):
               (sfm.rs:61-77).  Active agents compact to the front; candidate
               slots merge in the same sort.
 4. forces   — goal + pairwise + obstacle forces over the dense 3x3-cell
-              candidate table (sfm.rs:93-241), evaluated in fixed-size agent
-              chunks to bound memory.
+              candidate table (sfm.rs:93-241).
 5. integrate— trapezoidal with speed clamp (sfm.rs:245-254).
 """
 
@@ -65,24 +64,22 @@ class StepMetrics(NamedTuple):
 
     n_active: jnp.ndarray  # i32
     n_spawned: jnp.ndarray  # i32
-    # ACTIONABLE losses only: agents lost to capacity saturation (flat
-    # backends) or spawn candidates dropped into full cells (grid
-    # backend).  Expected departures are n_exited.
+    # ACTIONABLE losses only: agents lost to capacity saturation.
+    # Expected departures are n_exited.
     n_dropped: jnp.ndarray  # i32
-    n_overflow: jnp.ndarray  # i32: cell-table overflow drops
-    # peak per-cell demand this step (grid backend; 0 elsewhere) — the
-    # Simulator grows table_capacity BEFORE demand reaches K, so cell
-    # overflow never drops agents under gradual densification
+    # agents that found their cell full (no pair forces this step)
+    n_overflow: jnp.ndarray  # i32
+    # agents in the fullest neighbor cell this step (0 in all-pairs mode)
+    # — the Simulator grows table_capacity BEFORE demand reaches K, so
+    # cell overflow never drops pair forces under gradual densification
     max_demand: jnp.ndarray = np.int32(0)
     # agents that walked off the field this step (the reference's silent
-    # out-of-grid drop, neighbor_grid.rs:29) — EXPECTED on open scenarios,
-    # never warned about; grid backend only (the flat paths despawn
-    # off-field agents through the potential test a step later)
+    # out-of-grid drop, neighbor_grid.rs:29) — EXPECTED on open
+    # scenarios, never warned about
     n_exited: jnp.ndarray = np.int32(0)
-    # peak per-cell MOVER count this step (incremental-rebin grid path;
-    # 0 elsewhere) — the Simulator grows the mover table before cells
-    # exceed it, keeping the fast hole-preserving rebin on its fast path
-    max_mover_demand: jnp.ndarray = np.int32(0)
+    # sharded step only: emigrants deferred and halo ghosts truncated by a
+    # full exchange package (agents stay alive and retry next step)
+    n_deferred: jnp.ndarray = np.int32(0)
 
 
 def _spawn_cap(lam: float) -> int:
@@ -137,9 +134,6 @@ class StepConfig:
     spawn: SpawnPlan
     field_unit: float
     table_capacity: int = 16
-    row_block: int = 4  # cell rows per dense-force block (memory knob)
-    chunk_size: int = 2048  # --work-size; SimulatorOptions.row_block derives
-    #                         the Pallas dispatch granularity from it
     use_neighbor_grid: bool = True
     use_distance_map: bool = True
 
@@ -152,8 +146,6 @@ class StepConfig:
         neighbor_grid_unit: float = 1.4,
         field_unit: float = 0.25,
         table_capacity: int = 16,
-        row_block: int = 4,
-        chunk_size: int = 2048,
         use_neighbor_grid: bool = True,
         use_distance_map: bool = True,
     ) -> "StepConfig":
@@ -166,8 +158,6 @@ class StepConfig:
             spawn=spawn,
             field_unit=field_unit,
             table_capacity=table_capacity,
-            row_block=row_block,
-            chunk_size=chunk_size,
             use_neighbor_grid=use_neighbor_grid,
             use_distance_map=use_distance_map,
         )
@@ -287,9 +277,9 @@ def device_inputs(cfg: StepConfig, maps: FieldMaps):
     """Device arrays the step function takes as ARGUMENTS.
 
     Passing the (large, read-only) field maps as jit arguments instead of
-    closure constants keeps them out of the serialized HLO module — this
-    environment compiles remotely, and baked-in multi-MB constants blow the
-    trace/compile time up from seconds to minutes.
+    closure constants keeps them out of the HLO module: baked-in
+    multi-MB constants blow the trace/compile time up from seconds to
+    minutes and make every scenario its own compile-cache entry.
     """
     field = DeviceField.from_maps(maps)
     obstacles = tuple(map(jnp.asarray, cfg.obstacle_arrays()))
@@ -319,96 +309,107 @@ def make_step(cfg: StepConfig, maps: FieldMaps):
         key, k_spawn = jax.random.split(state.key)
         a = state.agents
 
-        # 1. spawn candidates, appended past the capacity window.
-        cand = _spawn_candidates(cfg, k_spawn)
-        n_spawned = jnp.sum(cand.active).astype(jnp.int32)
-        ext = AgentState(
-            pos=jnp.concatenate([a.pos, cand.pos]),
-            vel=jnp.concatenate([a.vel, cand.vel]),
-            speed=jnp.concatenate([a.speed, cand.speed]),
-            dest=jnp.concatenate([a.dest, cand.dest]),
-            active=jnp.concatenate([a.active, cand.active]),
-        )
+        with jax.named_scope("spawn"):
+            # 1. spawn candidates, appended past the capacity window.
+            cand = _spawn_candidates(cfg, k_spawn)
+            n_spawned = jnp.sum(cand.active).astype(jnp.int32)
+            ext = AgentState(
+                pos=jnp.concatenate([a.pos, cand.pos]),
+                vel=jnp.concatenate([a.vel, cand.vel]),
+                speed=jnp.concatenate([a.speed, cand.speed]),
+                dest=jnp.concatenate([a.dest, cand.dest]),
+                active=jnp.concatenate([a.active, cand.active]),
+            )
 
-        # 2. one field-sampling pass: destination potential (despawn +
-        # goal direction) and obstacle distance, four row gathers total.
-        fs = sample_field(field_rows, map_h, map_w, ext.dest, ext.pos, cfg.field_unit)
-        e = F.safe_normalize(fs.pot_grad)
+        with jax.named_scope("sample"):
+            # 2. one field-sampling pass: destination potential (despawn +
+            # goal direction) and obstacle distance, four row gathers total.
+            fs = sample_field(field_rows, map_h, map_w, ext.dest, ext.pos, cfg.field_unit)
+            e = F.safe_normalize(fs.pot_grad)
 
-        # Despawn: arrived (potential <= 0.25, sfm.rs:69) or out of grid
-        # (neighbor_grid.rs:29 silently drops them; here the cell-id
-        # sentinel doubles as the in-grid test so they deactivate instead
-        # of sampling the 1e12 ring forever).
-        alive = ext.active & (fs.potential > phys.despawn_potential)
-        cid = compute_cell_ids(ext.pos, alive, cfg.grid)
-        alive = cid < cfg.grid.n_cells
+            # Despawn: arrived (potential <= 0.25, sfm.rs:69) or out of grid
+            # (neighbor_grid.rs:29 silently drops them; here the cell-id
+            # sentinel doubles as the in-grid test so they deactivate instead
+            # of sampling the 1e12 ring forever).
+            not_arrived = ext.active & (fs.potential > phys.despawn_potential)
+            cid = compute_cell_ids(ext.pos, not_arrived, cfg.grid)
+            alive = cid < cfg.grid.n_cells
+            n_exited = jnp.sum(not_arrived & ~alive).astype(jnp.int32)
 
-        # 3. cell-sort and truncate back to capacity; active agents sort to
-        # the front (sentinel id for the rest), so truncation only ever
-        # drops agents when the population exceeds capacity.  All per-agent
-        # channels ride in ONE packed [*, 12] array so the permutation is a
-        # single row gather.
-        order = jnp.argsort(cid, stable=True)
-        # Fault containment: a non-finite VELOCITY would poison the whole
-        # 3x3 neighborhood through 0*NaN in the masked pair accumulate
-        # (non-finite positions are already dead here: NaN fails the
-        # despawn compare, inf fails the cell-id bound).  A huge finite
-        # sentinel keeps the pair math finite — zero force (ellipse far
-        # beyond cutoff), and the agent flings itself out of the grid on
-        # integration, despawning counted next step.
-        vel_f = jnp.where(jnp.abs(ext.vel) < 2.0**30, ext.vel, 2.0**30)
-        # ... and a non-finite SPEED would NaN the goal force the same way
-        # (speed reaches accel via (e*speed - vel)/tau); the sentinel makes
-        # the agent fling itself out of the grid instead, counted.
-        speed_f = jnp.where(jnp.abs(ext.speed) < 2.0**30, ext.speed, 2.0**30)
-        packed = jnp.concatenate(
-            [
-                ext.pos, vel_f, speed_f[:, None],
-                ext.dest.astype(jnp.float32)[:, None],
-                alive.astype(jnp.float32)[:, None],
-                e, fs.obs_dist[:, None], fs.obs_grad,
-            ],
-            axis=1,
-        )
-        sp = jnp.take(packed, order, axis=0, mode="clip")[:c]
-        cid_sorted = jnp.take(cid, order, mode="clip")[:c]
-        agents = AgentState(
-            pos=sp[:, 0:2],
-            vel=sp[:, 2:4],
-            speed=sp[:, 4],
-            dest=sp[:, 5].astype(jnp.int32),
-            active=sp[:, 6] > 0.5,
-        )
-        e_s = sp[:, 7:9]
-        n_alive_total = jnp.sum(alive).astype(jnp.int32)
-        n_active = jnp.sum(agents.active).astype(jnp.int32)
-        n_dropped = n_alive_total - n_active
+        with jax.named_scope("sort"):
+            # 3. cell-sort and truncate back to capacity; active agents sort to
+            # the front (sentinel id for the rest), so truncation only ever
+            # drops agents when the population exceeds capacity.  All per-agent
+            # channels ride in ONE packed [*, 12] array so the permutation is a
+            # single row gather.
+            order = jnp.argsort(cid, stable=True)
+            # Fault containment: a non-finite VELOCITY would poison the whole
+            # 3x3 neighborhood through 0*NaN in the masked pair accumulate
+            # (non-finite positions are already dead here: NaN fails the
+            # despawn compare, inf fails the cell-id bound).  A huge finite
+            # sentinel keeps the pair math finite — zero force (ellipse far
+            # beyond cutoff), and the agent flings itself out of the grid on
+            # integration, despawning counted next step.
+            vel_f = jnp.where(jnp.abs(ext.vel) < 2.0**30, ext.vel, 2.0**30)
+            # ... and a non-finite SPEED would NaN the goal force the same way
+            # (speed reaches accel via (e*speed - vel)/tau); the sentinel makes
+            # the agent fling itself out of the grid instead, counted.
+            speed_f = jnp.where(jnp.abs(ext.speed) < 2.0**30, ext.speed, 2.0**30)
+            packed = jnp.concatenate(
+                [
+                    ext.pos, vel_f, speed_f[:, None],
+                    ext.dest.astype(jnp.float32)[:, None],
+                    alive.astype(jnp.float32)[:, None],
+                    e, fs.obs_dist[:, None], fs.obs_grad,
+                ],
+                axis=1,
+            )
+            sp = jnp.take(packed, order, axis=0, mode="clip")[:c]
+            cid_sorted = jnp.take(cid, order, mode="clip")[:c]
+            agents = AgentState(
+                pos=sp[:, 0:2],
+                vel=sp[:, 2:4],
+                speed=sp[:, 4],
+                dest=sp[:, 5].astype(jnp.int32),
+                active=sp[:, 6] > 0.5,
+            )
+            e_s = sp[:, 7:9]
+            n_alive_total = jnp.sum(alive).astype(jnp.int32)
+            n_active = jnp.sum(agents.active).astype(jnp.int32)
+            n_dropped = n_alive_total - n_active
 
-        # 4. forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
-        # pairwise via the dense cell layout (ops/forcepass.py).
-        acc = F.goal_force(e_s, agents.vel, agents.speed, phys)
-        if cfg.use_distance_map:
-            acc = acc + F.obstacle_force(sp[:, 9], sp[:, 10:12], phys)
-        elif obstacles[0].shape[0] > 0:
-            acc = acc + F.segment_obstacle_force(agents.pos, *obstacles, phys)
+        with jax.named_scope("local_forces"):
+            # 4. forces: goal (sfm.rs:107-109) + obstacle (sfm.rs:188-237) +
+            # pairwise via the dense cell layout (ops/forcepass.py).
+            acc = F.goal_force(e_s, agents.vel, agents.speed, phys)
+            if cfg.use_distance_map:
+                acc = acc + F.obstacle_force(sp[:, 9], sp[:, 10:12], phys)
+            elif obstacles[0].shape[0] > 0:
+                acc = acc + F.segment_obstacle_force(agents.pos, *obstacles, phys)
 
         if cfg.use_neighbor_grid:
-            layout = forcepass.build_layout(cid_sorted, agents.active, grid, k)
-            data = forcepass.scatter_cell_data(layout, grid, k, agents.pos,
-                                               agents.vel, e_s)
-            acc_flat = forcepass.dense_pairwise(data, grid, k, phys,
-                                                row_block=cfg.row_block)
-            acc = acc + forcepass.gather_pair_acc(acc_flat, layout)
+            with jax.named_scope("scatter"):
+                layout = forcepass.build_layout(cid_sorted, agents.active,
+                                                grid, k)
+                data = forcepass.scatter_cell_data(layout, grid, k, agents.pos,
+                                                   agents.vel, e_s)
+            with jax.named_scope("pair"):
+                acc_flat = forcepass.dense_pairwise(data, grid, k, phys)
+            with jax.named_scope("gather"):
+                acc = acc + forcepass.gather_pair_acc(acc_flat, layout)
             n_overflow = layout.n_overflow
+            max_demand = layout.max_count
         else:
-            acc = acc + _all_pairs_acc(cfg, agents, e_s)
-            n_overflow = jnp.int32(0)
+            with jax.named_scope("pair"):
+                acc = acc + _all_pairs_acc(cfg, agents, e_s)
+            n_overflow = max_demand = jnp.int32(0)
 
         # 5. integrate (sfm.rs:245-254).
-        pos, vel = F.integrate(
-            agents.pos, agents.vel, acc, agents.speed, agents.active, phys
-        )
-        agents = agents._replace(pos=pos, vel=vel)
+        with jax.named_scope("integrate"):
+            pos, vel = F.integrate(
+                agents.pos, agents.vel, acc, agents.speed, agents.active, phys
+            )
+            agents = agents._replace(pos=pos, vel=vel)
 
         new_state = SimState(agents=agents, key=key, step=state.step + 1)
         metrics = StepMetrics(
@@ -416,6 +417,8 @@ def make_step(cfg: StepConfig, maps: FieldMaps):
             n_spawned=n_spawned,
             n_dropped=n_dropped,
             n_overflow=n_overflow,
+            max_demand=max_demand,
+            n_exited=n_exited,
         )
         return new_state, metrics
 

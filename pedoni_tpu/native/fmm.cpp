@@ -4,7 +4,7 @@
 // (pedoni-simulator/src/field.rs:118-192): a Dijkstra-like binary-heap sweep
 // that propagates arrival times from source cells (potential == 0) outward,
 // using the first-order upwind quadratic update.  Runs once per scenario at
-// load time; results are shipped to TPU HBM and never touched again.
+// load time; results are shipped to device memory and never touched again.
 //
 // Semantics notes (kept identical to the Rust code and the Python fallback
 // in pedoni_tpu/field.py):

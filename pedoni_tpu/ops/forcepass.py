@@ -1,17 +1,12 @@
-"""Dense cell-layout pairwise force pass — the TPU-shaped hot loop.
+"""Dense cell-layout pairwise force pass.
 
 The reference's hot loop walks variable-length CSR neighbor lists per agent
-(sfm.rs:122-156).  A literal translation (gather each agent's ~144 candidate
-indices, then their positions/velocities) is catastrophically slow on TPU:
-XLA gathers are scalar-unit bound (~10 cycles/element), measured 50+ ms per
-step at 131k agents — 20x the cost of the equivalent dense math.
-
-Instead, agents are scattered once into a **dense cell grid**
+(sfm.rs:122-156).  Here agents are scattered once into a **dense cell grid**
 ``D[ny+2, nx+2, K, 8]`` (cell-major, K slots per cell, 1-cell zero ring) and
-the 3x3 neighborhood of every cell is materialized by NINE SHIFTED SLICES —
-pure data movement XLA turns into vectorized copies, no gathers at all.  The
-pair math then runs as dense [K, 9K] lane-parallel VPU arithmetic, blocked
-over cell rows to bound memory.
+the 3x3 neighborhood of every cell is materialized by NINE SHIFTED SLICES.
+The pair math then runs as dense [K, 9K] elementwise arithmetic plus one
+reduction, which XLA fuses into a few kernels with no per-pair index
+traffic.
 
 Channels: pos.x, pos.y, vel.x, vel.y, e.x, e.y (goal direction, needed for
 the FOV anisotropy, sfm.rs:149-151), active flag, padding.
@@ -20,7 +15,8 @@ Trade-offs vs. the reference semantics:
 - cells hold at most K agents; overflow agents (reported per step) neither
   exert nor receive pairwise forces that step.  The reference's ThinVec
   cells are unbounded; K=16 covers ~6 agents/m^2 peaks at the default
-  1.4 m cell.
+  1.4 m cell, and the Simulator grows K from ``max_count`` before a cell
+  fills, so overflow needs a cell to jump past K within one step.
 - empty cell slots compute masked garbage lanes — the price of density.
 """
 
@@ -45,6 +41,7 @@ class CellLayout(NamedTuple):
     slot: jnp.ndarray  # [N] flat index into the padded (ny+2, nx+2, K) grid
     valid: jnp.ndarray  # [N] has a cell slot (in grid, active, rank < K)
     n_overflow: jnp.ndarray  # scalar i32
+    max_count: jnp.ndarray  # scalar i32: agents in the fullest cell
 
 
 def build_layout(cid_sorted: jnp.ndarray, active: jnp.ndarray,
@@ -53,7 +50,8 @@ def build_layout(cid_sorted: jnp.ndarray, active: jnp.ndarray,
 
     Rank within the cell comes from a cummax scan over run starts (no CSR
     offsets, no gathers): rank[i] = i - (index of the first agent with the
-    same cell id).
+    same cell id).  ``max_count`` is the largest cell population, K or
+    not: the Simulator grows K before it is reached.
     """
     n = cid_sorted.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -70,8 +68,11 @@ def build_layout(cid_sorted: jnp.ndarray, active: jnp.ndarray,
     slot = ((cy + 1) * (grid.nx + 2) + (cx + 1)) * k + rank
     n_cells_padded = (grid.ny + 2) * (grid.nx + 2)
     slot = jnp.where(ok, slot, n_cells_padded * k)  # dropped by scatter
-    n_overflow = jnp.sum(in_grid & active & (rank >= k)).astype(jnp.int32)
-    return CellLayout(slot=slot, valid=ok, n_overflow=n_overflow)
+    placed = in_grid & active
+    n_overflow = jnp.sum(placed & (rank >= k)).astype(jnp.int32)
+    max_count = jnp.max(jnp.where(placed, rank + 1, 0)).astype(jnp.int32)
+    return CellLayout(slot=slot, valid=ok, n_overflow=n_overflow,
+                      max_count=max_count)
 
 
 def scatter_cell_data(layout: CellLayout, grid: CellGrid, k: int,
@@ -139,12 +140,16 @@ def _pair_block(center: jnp.ndarray, cand: jnp.ndarray, k: int,
 
 
 def dense_pairwise(data: jnp.ndarray, grid: CellGrid, k: int, phys: Physics,
-                   row_block: int = 8) -> jnp.ndarray:
+                   row_block: int = 4) -> jnp.ndarray:
     """Pairwise accelerations for every cell slot.
 
     ``data`` is the padded [ny+2, nx+2, K, 8] grid; returns the flat
     [ (ny+2)*(nx+2)*K, 2 ] acceleration array in the same padded layout
-    (so callers can gather per agent by their ``slot``).
+    (so callers can gather per agent by their ``slot``).  The grid runs
+    in blocks of ``row_block`` cell rows, in order, under ``lax.map``:
+    XLA materialises the [rows, nx, K, 9K] pair intermediates, so one
+    block over the whole 1M-agent grid needs 26 GB of temporaries and
+    runs 1.9x slower on an H100 than blocks of 4 rows (PERF.md).
     """
     ny, nx = grid.ny, grid.nx
     rb = min(row_block, ny)

@@ -2,7 +2,7 @@
 
 The reference re-bins all agents into a cell list every step on the host
 (neighbor_grid.rs:22-36) and counting-sorts them into a cell-major CSR layout
-(sfm.rs:58-77).  The TPU-native equivalent keeps everything on device with
+(sfm.rs:58-77).  The device-resident equivalent keeps everything on device with
 static shapes:
 
 1. cell id per agent (inactive / out-of-grid agents get the sentinel id

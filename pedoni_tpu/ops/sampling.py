@@ -5,8 +5,7 @@ Runtime counterpart of the reference's per-agent field queries
 of the out-of-bounds value 1e12 (see pedoni_tpu/field.py); gradients read
 pre-convolved Sobel maps instead of 8 bilinear taps per agent per map.
 
-TPU cost model: XLA gathers on TPU are index-bound (~10 cycles per index),
-so the layout is one fat row per map cell — (potential, pot_gx, pot_gy,
+Layout: one fat row per map cell — (potential, pot_gx, pot_gy,
 obstacle_distance, dist_gx, dist_gy, 0, 0), with the obstacle channels
 duplicated into every waypoint plane — and each agent performs exactly FOUR
 row gathers (the bilinear taps), each delivering all 6 physical channels.

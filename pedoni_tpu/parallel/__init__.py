@@ -1,8 +1,8 @@
-from .spatial import ShardedConfig, make_sharded_step, make_sharded_initial_state, dryrun
+from .spatial import ShardedConfig, dryrun, make_sharded_step, shard_state
 
 __all__ = [
     "ShardedConfig",
-    "make_sharded_step",
-    "make_sharded_initial_state",
     "dryrun",
+    "make_sharded_step",
+    "shard_state",
 ]

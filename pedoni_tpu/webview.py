@@ -4,7 +4,7 @@ The reference ships an interactive miniquad/OpenGL window with mouse-drag
 pan, scroll zoom and Space pause (pedoni/src/renderer/mod.rs:54-63,
 121-136, 138-168), drawing obstacles as gray rects, waypoints as orange
 rects and pedestrians as circles colored by destination through a 6-color
-cycle (renderer/mod.rs:9-16).  On a headless TPU host the idiomatic
+cycle (renderer/mod.rs:9-16).  On a headless accelerator host the idiomatic
 equivalent is a tiny HTTP server + HTML canvas: point any browser at the
 printed URL and get the same camera and the same drawing conventions,
 with the render path fully decoupled from the device step loop (the
@@ -166,7 +166,7 @@ class WebViewer:
     it is called from a background ``SnapshotStream`` (renderer.py),
     never from HTTP handler threads, so a slow device fetch can never
     pile up requests against the runtime, and the stream's adaptive
-    pacing keeps an expensive fetch (1M-agent grid unbin over a tunnel)
+    pacing keeps an expensive fetch (a 1M-agent device->host copy)
     from starving the sim loop's host core.  ``paused`` is polled by the
     sim loop (the browser's Space key is the reference's pause toggle,
     renderer/mod.rs:121-136).

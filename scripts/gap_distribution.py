@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Evacuation-time distribution on gap.toml across seeds and backends —
-the reference author's own fidelity harness (pedoni/src/main.rs:58-77).
+"""Evacuation-time distribution on gap.toml across seeds — the reference
+author's own fidelity harness (pedoni/src/main.rs:58-77).
 
-    python scripts/gap_distribution.py [--backends grid xla] [--seeds 5]
+    python scripts/gap_distribution.py [--seeds 5] [--devices N]
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ from pedoni_tpu import Simulator, SimulatorOptions, load_scenario  # noqa: E402
 GAP = pathlib.Path(__file__).resolve().parents[1] / "scenarios" / "gap.toml"
 
 
-def evac_steps(backend: str, seed: int, max_steps: int = 600) -> int:
-    sim = Simulator(SimulatorOptions(seed=seed, backend=backend),
+def evac_steps(seed: int, n_devices: int = 1, max_steps: int = 600) -> int:
+    sim = Simulator(SimulatorOptions(seed=seed, n_devices=n_devices),
                     load_scenario(GAP))
     for i in range(1, max_steps + 1):
         if sim.tick().active_ped_count == 0:
@@ -29,15 +29,14 @@ def evac_steps(backend: str, seed: int, max_steps: int = 600) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backends", nargs="+", default=["grid", "xla"])
     ap.add_argument("--seeds", type=int, default=5)
+    ap.add_argument("--devices", type=int, default=1)
     args = ap.parse_args()
     import numpy as np
 
-    for backend in args.backends:
-        steps = [evac_steps(backend, s) for s in range(1, args.seeds + 1)]
-        print(f"{backend:6s}: {steps}  mean {np.mean(steps):.0f} "
-              f"± {np.std(steps):.0f}")
+    steps = [evac_steps(s, args.devices) for s in range(1, args.seeds + 1)]
+    print(f"{args.devices} device(s): {steps}  mean {np.mean(steps):.0f} "
+          f"± {np.std(steps):.0f}")
     return 0
 
 

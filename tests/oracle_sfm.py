@@ -4,13 +4,13 @@ A per-agent-loop NumPy transliteration of the reference physics
 (/root/reference/pedoni-simulator/src/models/sfm.rs:91-255 and
 util.rs:44-75), written ONLY from the reference — it shares no code with
 pedoni_tpu's vectorized implementations.  Purpose (test pyramid): the
-XLA, flat-Pallas and grid backends are all checked against each other
-and against hand-derived unit cases, but those chains share one Python
+single-device and sharded steps are checked against each other and
+against hand-derived unit cases, but those chains share one Python
 reading of the physics; a shared misreading (a sign convention, the
 half-cell sampling offset, the FOV inequality direction) would pass
 everything.  This oracle de-correlates implementation and referee:
-tests/test_oracle.py runs trajectories through it and through the real
-backends and compares.
+tests/test_oracle.py and chip_smoke.py run trajectories through it and
+through the real step and compare.
 
 Semantics mirrored here, with sources:
 - field sampling at ``pos/unit - 0.5`` with out-of-bounds taps = 1e12
@@ -267,3 +267,36 @@ def oracle_step(field, pos: np.ndarray, vel: np.ndarray, speed: np.ndarray,
         new_pos[i, 1] = py + (nvy + vel[i, 1]) * (DT * 0.5)
 
     return new_pos, new_vel, act
+
+
+def oracle_run(field, pos, vel, speed, dest, active, size, unit: float,
+               n_steps: int, **modes):
+    """``n_steps`` oracle ticks; returns the final (pos, active)."""
+    p, v, a = pos, vel, np.asarray(active).copy()
+    sp = np.asarray(speed, np.float64)
+    for _ in range(n_steps):
+        p, v, a = oracle_step(field, p, v, sp, dest, a, size, unit, **modes)
+    return p, a
+
+
+def tagged_errors(tags, o_pos, o_act, b_pos, b_act, b_tags) -> np.ndarray:
+    """Per-agent position difference (max over x, y) between a run under
+    test and the oracle, agents matched by a unique tag (``tags[i]`` is
+    oracle agent i's; ``b_tags`` the tested run's, in its own slot order).
+    Raises AssertionError when the two runs keep different agents."""
+    o_ids = {float(t): i for i, t in enumerate(np.asarray(tags, np.float32))}
+    b_tags = np.asarray(b_tags, np.float32)
+    errs = []
+    for bi in np.flatnonzero(b_act):
+        oi = o_ids[float(b_tags[bi])]
+        assert o_act[oi], f"agent {oi} active in the tested run, not oracle"
+        errs.append(float(np.abs(b_pos[bi] - o_pos[oi]).max()))
+    assert len(errs) == int(np.sum(o_act)), (
+        f"tested run kept {len(errs)} agents, oracle {int(np.sum(o_act))}")
+    return np.asarray(errs)
+
+
+def max_tagged_error(tags, o_pos, o_act, b_pos, b_act, b_tags) -> float:
+    """Largest of :func:`tagged_errors` (0.0 when no agent is left)."""
+    errs = tagged_errors(tags, o_pos, o_act, b_pos, b_act, b_tags)
+    return float(errs.max()) if errs.size else 0.0

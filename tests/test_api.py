@@ -88,7 +88,7 @@ def test_checkpoint_state_functions(tmp_path):
 def test_diagnostic_log_schema(tmp_path):
     # The exported JSON must match the reference schema exactly
     # (diagnostic.rs:6-50) so downstream tooling carries over.
-    log = DiagnosticLog(model="sfm-tpu/xla", scenario="x.toml")
+    log = DiagnosticLog(model="sfm/gpux1", scenario="x.toml")
     log.time_calc_field = 0.5
     log.push(StepRecord(active_ped_count=3, time_spawn=0.0,
                         time_calc_state=0.01))

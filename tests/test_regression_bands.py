@@ -22,9 +22,8 @@ LANES = pathlib.Path("/root/reference/scenarios/lanes.toml")
 GAP_BAND = (160, 340)
 
 
-def _evac_steps(backend: str, seed: int, max_steps: int = 500) -> int:
-    sim = Simulator(SimulatorOptions(seed=seed, backend=backend),
-                    load_scenario(GAP))
+def _evac_steps(seed: int, max_steps: int = 500) -> int:
+    sim = Simulator(SimulatorOptions(seed=seed), load_scenario(GAP))
     for i in range(1, max_steps + 1):
         rec = sim.tick()
         if rec.active_ped_count == 0:
@@ -33,12 +32,11 @@ def _evac_steps(backend: str, seed: int, max_steps: int = 500) -> int:
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("backend", ["xla", "grid"])
-def test_gap_evacuation_band(backend):
-    steps = [_evac_steps(backend, seed) for seed in (1, 2)]
+def test_gap_evacuation_band():
+    steps = [_evac_steps(seed) for seed in (1, 2)]
     for s in steps:
         assert GAP_BAND[0] <= s <= GAP_BAND[1], (
-            f"{backend} evacuation at {s} steps is outside the frozen "
+            f"evacuation at {s} steps is outside the frozen "
             f"band {GAP_BAND} (FIDELITY.md: 246 +- 22)"
         )
 

@@ -152,38 +152,37 @@ def test_metrics_counts_finite():
 
 
 def test_fused_backends_run_all_pairs_mode():
-    """--no-neighbor-grid on the fused backends (args.rs:27-29): the
-    reference's all-pairs path keeps the 2 m cutoff (sfm.rs:158-184), so
-    the Simulator grows the cell unit to cover the cutoff (and the table
-    capacity by the area ratio) instead of rejecting the flag — the 3x3
-    window then finds exactly the all-pairs interaction set (physics
-    equivalence vs the XLA all-pairs pass:
-    test_grid_backend.py::test_grid_all_pairs_unit_matches_xla_all_pairs)."""
-    sim = make_sim(STRAIGHT, backend="grid", use_neighbor_grid=False, seed=4)
-    assert sim.options.neighbor_grid_unit == 2.0
-    assert sim.options.table_capacity == 29  # ceil(16 * (2.0/1.5)^2)
+    """--no-neighbor-grid (args.rs:27-29): the all-pairs pass runs with the
+    reference's cell unit and table untouched, reports no cell demand, so
+    the table never grows, and the physics stays sane (exactness against
+    the oracle: test_oracle.py::test_xla_all_pairs_matches_oracle)."""
+    sim = make_sim(STRAIGHT, use_neighbor_grid=False, seed=4)
     for _ in range(3):
         rec = sim.tick()
     assert rec.active_ped_count >= 0 and rec.time_calc_state > 0.0
+    assert int(sim.last_metrics.max_demand) == 0
+    assert sim.options.neighbor_grid_unit == 1.4
+    assert sim.options.table_capacity == 16
 
 
 def test_grid_backend_runs_segment_obstacle_mode():
-    """--no-distance-map DOES run on the grid backend: the kernel switches
-    to statically unrolled per-segment obstacle geometry (sfm.rs:194-237;
-    exactness vs the XLA segment pass is covered in test_step_kernel.py).
-    Here: the Simulator wiring accepts the flag and the physics stays
-    sane."""
-    sim = make_sim(NARROW_GAP, seed=6, backend="grid",
-                   use_distance_map=False)
+    """--no-distance-map (exact per-segment obstacle geometry,
+    sfm.rs:194-237) on the sharded step: the Simulator wiring accepts the
+    flag on two devices and agrees with one device."""
+    one = make_sim(NARROW_GAP, seed=6, use_distance_map=False)
+    two = make_sim(NARROW_GAP, seed=6, use_distance_map=False, n_devices=2)
     for _ in range(10):
-        rec = sim.tick()
-    assert rec.active_ped_count > 0
-    pos, _ = sim.list_pedestrians()
-    assert np.isfinite(pos).all()
+        r1, r2 = one.tick(), two.tick()
+        assert r1.active_ped_count == r2.active_ped_count > 0
+    p1, _ = one.list_pedestrians()
+    p2, _ = two.list_pedestrians()
+    assert np.isfinite(p2).all()
+    np.testing.assert_allclose(p1[np.lexsort(p1.T)], p2[np.lexsort(p2.T)],
+                               atol=1e-4)
 
 
 def test_xla_nonfinite_velocity_contained():
-    """XLA-backend fault containment: a NaN-velocity agent exerts zero
+    """Fault containment: a NaN-velocity agent exerts zero
     force, flings out of the grid on integration and despawns counted —
     it must not NaN-poison its 3x3 neighborhood through the dense pass."""
     import jax.numpy as jnp
@@ -221,7 +220,7 @@ def test_run_accumulates_metrics_on_device():
     and an identical sim run(N) see the same spawned/dropped/overflow/
     exited totals and the same max demand (VERDICT round-3 weak #2)."""
     n = 24
-    sim_t = make_sim(STRAIGHT, seed=7, backend="grid")
+    sim_t = make_sim(STRAIGHT, seed=7)
     per_tick = []
     last_rec = None
     for _ in range(n):
@@ -236,7 +235,7 @@ def test_run_accumulates_metrics_on_device():
     }
     assert last_rec.active_ped_count > 0
 
-    sim_r = make_sim(STRAIGHT, seed=7, backend="grid")
+    sim_r = make_sim(STRAIGHT, seed=7)
     rec = sim_r.run(n)
     tm = sim_r.last_run_metrics
     assert int(tm.n_spawned) == totals["n_spawned"] > 0
@@ -251,7 +250,7 @@ FAST_SPAWN = STRAIGHT.replace("frequency = 2.0", "frequency = 30.0")
 
 
 def test_run_grows_flat_capacity_at_sync_points():
-    """run()'s sync points monitor the flat backends' agent capacity the
+    """run()'s sync points monitor the agent capacity the
     same way tick() does (grow at 80%), so long throughput runs survive
     accumulating populations without drops."""
     sim = make_sim(FAST_SPAWN, seed=4, capacity=32)
@@ -274,22 +273,23 @@ line = [[16, 2], [16, 10]]
 
 
 def test_grid_table_growth_is_drop_free():
-    """Forced densification on the grid backend: peak cell demand reaching
-    K-1 grows table_capacity BEFORE any cell overflows (rebin demand_max
-    output -> Simulator preemptive growth), so no agent is ever lost."""
+    """Forced densification: peak cell demand reaching K-1 grows
+    table_capacity BEFORE any cell overflows (the step's max_demand ->
+    Simulator preemptive growth), so no agent ever loses its pair
+    forces to a full cell."""
     import jax
     import jax.numpy as jnp
 
     from pedoni_tpu.models.sfm import AgentState, SimState
 
-    sim = make_sim(CONVERGE, backend="grid", table_capacity=4, seed=0)
+    sim = make_sim(CONVERGE, table_capacity=4, seed=0)
     cap = sim.cfg.capacity
     pos = np.zeros((cap, 2), np.float32)
     vel = np.zeros((cap, 2), np.float32)
     # 3 agents in cell (0,1) walking right toward cell (0,2), which
     # already holds 3 = K-1 agents: the first tick reports demand K-1
-    # and must grow the table BEFORE the movers arrive (~3 steps at
-    # <= 0.174 m/step) and overflow K=4.
+    # and must grow the table BEFORE the movers arrive (>= 2 steps at
+    # <= 0.174 m/step over the 0.3 m to x = 2.8) and overflow K=4.
     for i, y in enumerate((0.25, 0.75, 1.25)):
         pos[i] = (2.5, y)
         pos[3 + i] = (3.8, y)
@@ -305,14 +305,15 @@ def test_grid_table_growth_is_drop_free():
     assert sim.pedestrian_count == 6
     for _ in range(12):
         rec = sim.tick()
-        # far from the waypoint and inside the field: any count drop
-        # would be an overflow loss
+        # far from the waypoint and inside the field: nobody leaves, and
+        # nobody finds a full cell
         assert rec.active_ped_count == 6
+        assert int(sim.last_metrics.n_overflow) == 0
     assert sim.options.table_capacity > 4  # growth actually happened
 
 
 def test_run_sync_free_growth_is_drop_free():
-    """run(n, sync_every=0) must grow the grid table drop-free like
+    """run(n, sync_every=0) must grow the cell table drop-free like
     tick() (VERDICT round-4 weak #7): the lagged in-loop guard fetches
     metrics a few dispatches old every guard_every steps, so a
     densifying sync-free throughput run grows BEFORE any cell overflows
@@ -322,13 +323,13 @@ def test_run_sync_free_growth_is_drop_free():
 
     from pedoni_tpu.models.sfm import AgentState, SimState
 
-    sim = make_sim(CONVERGE, backend="grid", table_capacity=4, seed=0)
+    sim = make_sim(CONVERGE, table_capacity=4, seed=0)
     cap = sim.cfg.capacity
     pos = np.zeros((cap, 2), np.float32)
     vel = np.zeros((cap, 2), np.float32)
     # 3 agents in cell (0,1) walking right toward cell (0,2), which
-    # already holds 3 = K-1 agents.  The movers start 1.1 m from the
-    # cell boundary (>= 7 steps at <= 0.174 m/step); the guard's first
+    # already holds 3 = K-1 agents.  The movers start 0.9 m from the
+    # cell boundary (>= 5 steps at <= 0.174 m/step); the guard's first
     # check (step guard_every=4, metrics of step 1, demand K-1) grows
     # the table before they arrive.
     for i, y in enumerate((0.25, 0.75, 1.25)):
@@ -353,33 +354,19 @@ def test_run_sync_free_growth_is_drop_free():
 
 
 def test_measure_spawn_time_slot():
-    """The time_spawn diagnostic slot (reference lib.rs:68-74,
-    diagnostic.rs:45): on the grid backend the isolated spawn-scatter
-    fence returns a positive time; scenarios without spawn sources
-    report 0.0; non-grid backends report None (slot stays 0.0)."""
-    sim = make_sim(STRAIGHT, backend="grid", seed=2)
+    """The time_spawn and time_calc_state_kernel diagnostic slots
+    (reference lib.rs:68-74, diagnostic.rs:45, sfm_gpu.rs:229-236): the
+    isolated spawn sampling and the step chain return positive times
+    without advancing the simulation; scenarios without spawn sources
+    report a spawn time of 0.0."""
+    sim = make_sim(STRAIGHT, seed=2)
+    sim.tick()
+    before = np.asarray(sim.state.agents.pos).copy()
     t = sim.measure_spawn_time(n=2)
     assert t is not None and t > 0.0
+    assert sim.measure_kernel_time(n=2) > 0.0
+    np.testing.assert_array_equal(np.asarray(sim.state.agents.pos), before)
+    assert sim.step_count == 1
 
-    no_spawn = make_sim(CONVERGE, backend="grid", seed=2)
+    no_spawn = make_sim(CONVERGE, seed=2)
     assert no_spawn.measure_spawn_time(n=1) == 0.0
-
-    xla = make_sim(STRAIGHT, seed=2)
-    assert xla.measure_spawn_time() is None
-
-
-def test_incremental_rebin_auto_rule():
-    """incremental_rebin=None resolves by expected cell occupancy
-    (round-5 density sweep: full rebin wins at lambda ~ 1.1, the
-    incremental family at lambda >= 2.25; threshold 1.75).  Explicit
-    settings always win over the auto rule."""
-    # NARROW_GAP: 30 agents on 20x20 m -> lambda = 30/400 * 2.25 ~ 0.17
-    sparse = make_sim(NARROW_GAP, backend="grid")
-    assert sparse._resolve_incremental() is False
-    # Dense variant: 1200 agents on 20x20 m -> lambda ~ 6.75
-    dense_toml = NARROW_GAP.replace("count = 30", "count = 1200")
-    dense = Simulator(SimulatorOptions(backend="grid", table_capacity=18),
-                      loads_scenario(dense_toml))
-    assert dense._resolve_incremental() is True
-    forced = make_sim(NARROW_GAP, backend="grid", incremental_rebin=True)
-    assert forced._resolve_incremental() is True
